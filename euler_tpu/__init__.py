@@ -1,4 +1,4 @@
-"""euler_tpu — a TPU-native (JAX/XLA/Pallas) Eulerian liquid simulation
+"""euler_tpu — a JAX/XLA Eulerian liquid simulation
 framework with the capabilities of the cgmb/euler reference.
 
 Physics: staggered MAC grid, marker particles, RK1 semi-Lagrangian

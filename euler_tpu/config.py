@@ -24,7 +24,7 @@ class SolverConfig:
 
     Mirrors main.c:735-736 (max 100 iterations, tol 1e-6 on the infinity
     norm of the residual).  The reference preconditions with serial
-    incomplete Cholesky (main.c:580-627); the TPU-native default is a
+    incomplete Cholesky (main.c:580-627); the default here is a
     fully-parallel preconditioner, relying on the tolerance-based stopping
     rule for float-level agreement of the converged pressure.
     """
@@ -37,13 +37,10 @@ class SolverConfig:
     # ||b|| ~ 1e3-1e4 at 1024²+ an absolute 1e-6 is below representable
     # precision, so every solve burns the full iteration budget without
     # "converging".  0.0 keeps exact reference semantics (the parity
-    # configs); the TPU benchmark sets 1e-6.
+    # configs); the converged mode (cli.py, bench.py) sets 1e-4.
     tol_rel: float = 0.0
     # Warm-start each substep's pressure solve from the previous
-    # substep's solution (zero at each frame's first substep).  The
-    # round-4 MG schedule lab (MG_LAB_r4.jsonl) measured ms_per_solve
-    # ~7.5-8 ms at 1024² for EVERY cycle schedule — iteration count and
-    # per-iteration cost trade exactly evenly — so the remaining
+    # substep's solution (zero at each frame's first substep): the
     # iteration lever that costs nothing per iteration is the initial
     # guess.  Stopping semantics are unchanged: tol_eff stays anchored
     # to ||b||_inf (main.c:735-767's rule in tol_rel form), so the
@@ -72,14 +69,13 @@ class SolverConfig:
     mg_smoother: str = "cheby"
     # Degree 1 (damped Jacobi on the Chebyshev interval) with W-depth 2:
     # measured on real 512² dam-break systems (tol_rel 1e-4), control
-    # (d2/wd3) takes 11 PCG iterations, d1 12, wd2 13 — while the kernel
-    # cost model (60% latency-bound at the chunked deep levels, PERF.md)
-    # prices d1+wd2 at ~0.5x per iteration.  Net ~1.6x cheaper solve.
+    # (d2/wd3) takes 11 PCG iterations, d1 12, wd2 13, at about half the
+    # operator applies per iteration.
     mg_cheby_degree: int = 1
     mg_cheby_ratio: float = 4.0
     mg_coarse_ratio: float = 100.0
     # W-recursion depth: levels < mg_w_depth recurse twice (truncated W).
-    # The tiny levels' extra visits cost kernel latency without reducing
+    # The tiny levels' extra visits cost kernel launches without reducing
     # the iteration count (measured).
     mg_w_depth: int = 2
     # Coarse-operator construction:
@@ -91,44 +87,19 @@ class SolverConfig:
     #                    in edge-weight form; boundary-exact; the
     #                    measured fix for the rate — ops/multigrid.py).
     mg_scheme: str = "galerkin"
-    # Rebuild the Galerkin coarse hierarchy once per FRAME (from the
-    # frame's incoming fluid mask) instead of once per substep, and let
-    # the 8 substeps' solves precondition with the stale coarse levels.
-    # The Krylov-side fine operator and the fine Chebyshev row are
-    # always rebuilt from the current mask, so converged residuals are
-    # unaffected — staleness can only cost PCG iterations.  The
-    # per-substep rebuild was 45% of the round-4 frame before the MXU
-    # coarsening (PERF.md round 5); this removes 7/8 of what remains.
-    # OFF by default pending the on-chip A/B (round-5 queue).
-    mg_frame_hierarchy: bool = False
     # Cycle shape for mg_scheme="galerkin": "w" (level-independent
     # iteration counts with constant prolongation — measured 15-17 PCG
     # iters from 256² to 1024²) or "v" (cheaper per cycle, counts grow
     # slowly with depth: 19/23/38 on the same systems).
     mg_cycle: str = "w"
-    # float32 is the TPU-native choice; float64 (requires jax_enable_x64)
+    # float32 is the accelerator choice; float64 (requires jax_enable_x64)
     # reproduces the reference's double-precision CG (main.c:577-578,716).
     dtype: str = "float32"
     # Evaluate the convergence test every `check_every` iterations.  1 is
-    # bitwise-closest to the reference loop; larger values amortise the
-    # while_loop condition on TPU.
+    # bitwise-closest to the reference loop.  Not yet read by
+    # ops/project.pcg_loop (ROADMAP Queue 1 item 3 would use it to cut
+    # the while_loop's per-iteration predicate read).
     check_every: int = 1
-    # Run the whole PCG solve as one Pallas kernel (jacobi + f32 only,
-    # grids up to ~2048²); the XLA loop emits thousands of small kernels
-    # per frame and is launch-bound.
-    use_pallas: bool = False
-    # With use_pallas: fuse the ENTIRE projection (divergence + matrix
-    # build + PCG + pressure clamp + face update + CFL maxsq reduce,
-    # main.c:709-820) into the one launch when its 9 VMEM planes fit
-    # (~<= 1448²); off = PCG-only kernel + XLA head/tail ops.  Measured
-    # ~5.5% SLOWER end-to-end at 1024² (PERF.md: the in-kernel chunked
-    # head/tail sweeps lose to XLA's fused elementwise ops), so off by
-    # default; kept as tested infrastructure.
-    fuse_projection: bool = False
-    # Run the solver/substep Pallas kernels in interpret mode (CPU
-    # testing of the jit-level dispatch paths; no effect on TPU runs
-    # that leave it False).
-    pallas_interpret: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,27 +128,21 @@ class SimConfig:
     #   "global" — one flat array + alive mask, random-access lookups;
     #              exact reference semantics (unbounded per-cell counts).
     #   "slots"  — markers stored by home cell, `slots_per_cell` each;
-    #              every marker op becomes a 3x3 stencil (no gathers —
-    #              ~1000x faster on TPU at scale), at the cost of
-    #              dropping arrivals beyond slots_per_cell in one cell.
+    #              every marker op becomes a 3x3 stencil (no gathers),
+    #              at the cost of dropping arrivals beyond
+    #              slots_per_cell in one cell (counted in
+    #              FluidState.dropped_markers).
     marker_layout: str = "global"
     # 16 makes the slot store LOSSLESS on every observed workload: the
     # per-cell maximum under reference semantics (uint8-bounded,
     # main.c:92-97) measured 16 on waterfall and <= 13 elsewhere over 50
-    # frames, and 9 on the 256² dam break over 30.  The fused kernel's
-    # march is kmax-bounded and its re-binning fills slots >= 8 only in
-    # a per-tile overflow pass, so the deep store costs ~0 vector work
-    # on drop-free tiles (marker_fused_kernel.py).  Any residual drop
+    # frames, and 9 on the 256² dam break over 30.  Any residual drop
     # past 16 still lands in the dropped_markers counter.
     #
-    # Default stays 8: on silicon, K = 16 with the default 128x512
-    # marker tile OOMs VMEM (Mosaic liveness peaks at 245.7M of the
-    # v5e's 128M — MEASURE_r4.jsonl.err, all four bench rungs), so the
-    # lossless depth requires a narrower tile (128x256 halves the slot
-    # scratch) until the overflow pass's live set is restructured.
-    # bench.py --slots-per-cell 16 --marker-tile 128x256 is the
-    # measured opt-in; drops at K = 8 are 0 on all golden scenarios and
-    # ~0.04% on the 1024² dam break (PERF.md).
+    # Default stays 8 (the depth the benchmark has always used; K = 16
+    # doubles the marker-pass bytes).  Drops at K = 8 are 0 on all golden
+    # scenarios and ~0.04% on the 1024² dam break;
+    # bench.py --slots-per-cell 16 is the lossless opt-in.
     slots_per_cell: int = 8
     # Replicate the reference's cross-marker dt leak (global layout
     # only): advect_markers mutates its dt parameter on collisions and
@@ -188,63 +153,6 @@ class SimConfig:
     # without it).  The slots layout marches cell-major and documents
     # per-marker dt as a deviation.
     marker_dt_carry: bool = True
-    # Use the fused Pallas TPU kernel for slot-marker advection (same
-    # math as the jnp path to within compiler FMA contraction).
-    use_pallas_markers: bool = False
-    # Fuse the marker march + re-binning into ONE Pallas launch with
-    # manual halo DMA (ops/pallas/marker_fused_kernel.py) — the two
-    # standalone kernels move ~3x the HBM traffic.  Only takes effect
-    # with marker_layout="slots" and use_pallas_markers=True.
-    fuse_marker_pass: bool = True
-    # Fused marker kernel 2D tile size (rows, lanes).  Taller tiles
-    # amortise the 1-cell halo's (8, 128) vector-register padding (a
-    # [34, 514] window pads to (40, 640) registers — 1.47x the useful
-    # lanes; [130, 514] pads 1.10x) at coarser empty-region skipping.
-    # A/B at 1024² (2026-08-17): 32x512 2.445e8, 64x512 2.51e8,
-    # 128x512 2.561e8.  Values fall back to divisors of the grid.
-    marker_tile: tuple = (128, 512)
-    # Run the marker Pallas kernels in interpret mode (CPU testing of
-    # the jit-level dispatch paths; solver kernels have the analogous
-    # SolverConfig.pallas_interpret).
-    pallas_interpret: bool = False
-    # Persistent padded slot store: keep the slot planes padded to
-    # [2K, Y+16, X+256] across the frame's substeps (padded once per
-    # frame) so the fused marker kernel's windows read aligned without
-    # the per-substep jnp.pad copies; tile outputs land by manual
-    # (8, 128)-aligned write DMA.  Flagship single-device path only
-    # (no sources/rainbow/sharding).  Default off until measured.
-    marker_padded_store: bool = False
-    # Fused marker kernel: fully-submerged tiles (every u/v property set,
-    # no solid in the window) skip the interpolation's validity
-    # machinery AND the whole DDA march — without solids the marcher
-    # cannot hit, so the final position is exactly px + dt*v.  Bitwise
-    # under the condition (tested); the flag exists for hardware A/B.
-    # Coverage caveat: a tile qualifies only if its window avoids the
-    # grid border, so it needs >= 3 column tiles — at 1024² that means
-    # marker_tile narrower than the (128, 512) default, e.g. (128, 256).
-    marker_interior_fast: bool = True
-    # Fused marker kernel: when a tile's live-slot bound kmax is
-    # <= slots_per_cell // 2, run a half-depth re-binning specialisation
-    # (exact — slots beyond kmax are dead everywhere in the window).
-    # Roughly halves the insertion (view, slot) pairs on settled flows
-    # where most cells hold their seeded 4 markers.
-    marker_kmax_specialize: bool = True
-    # Fused marker kernel: packed insertion (round 5, VERDICT r4 item 4).
-    # (1) The candidate mask folds into a masked rank plane
-    # rk = where(sel, run, -1) ONCE per source slot, so each
-    # (slot, dest) insertion pair costs compare + 2 selects instead of
-    # compare + and + 2 selects (-25% on the dominant inner loop);
-    # (2) within a live view, a source slot with no candidate anywhere
-    # in the tile skips its whole destination scan (one scalar any()
-    # gates ~DEST*4 vector ops) — on settled flow arrivals concentrate
-    # in the low slots, so most (view, slot) pairs skip.  Bitwise-exact:
-    # accept order and ranks are unchanged (tests/test_pallas_markers).
-    marker_packed_insert: bool = True
-    # Fused Pallas grid stage (extrapolate->zero->advect->gravity->zero).
-    # Measured ~4% SLOWER than the XLA op sequence at 1024² (the 7-deep
-    # row-view materialisations outweigh the launch savings) — kept as
-    # infrastructure for the full-substep fusion planned in ROADMAP.md.
-    use_pallas_grid: bool = False
 
     # Rendering / colour (main.c:83-84).
     rainbow: bool = False
@@ -252,7 +160,7 @@ class SimConfig:
     initial_color_period: float = 60.0  # grid cells
 
     # Grid-advection interpolation implementation:
-    #   "stencil" — 3x3 shifted-array selects (TPU-native, no gathers;
+    #   "stencil" — 3x3 shifted-array selects (no gathers;
     #               valid because CFL <= 0.75 keeps backtraces in-window);
     #   "gather"  — generic XLA gathers (reference formulation).
     # Bit-identical results; see tests/test_stencil.py.

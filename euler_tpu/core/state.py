@@ -1,7 +1,7 @@
 """Simulation state as immutable pytrees.
 
 The reference keeps all state in fixed-size global C arrays
-(/root/reference/main.c:64-100).  The TPU-native design makes state an
+(/root/reference/main.c:64-100).  Here state is an
 immutable pytree so the whole step is a pure `state -> state` function that
 jit/vmap/shard_map compose over.
 
@@ -17,17 +17,31 @@ Conventions (identical to the reference):
 
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from euler_tpu.config import SimConfig
 
 
-@struct.dataclass
+def _pytree_dataclass(cls):
+    """Frozen dataclass whose every field is a pytree child, with a
+    functional `replace(**changes)`."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
+
+    cls.replace = replace
+    names = [f.name for f in dataclasses.fields(cls)]
+    return jax.tree_util.register_dataclass(
+        cls, data_fields=names, meta_fields=[]
+    )
+
+
+@_pytree_dataclass
 class Scenario:
     """Static per-scenario cell flags (main.c:71-73) and derived indices."""
 
@@ -47,7 +61,7 @@ class Scenario:
         return self.source_yx.shape[0]
 
 
-@struct.dataclass
+@_pytree_dataclass
 class FluidState:
     """Dynamic simulation state (one scenario instance).
 
@@ -62,8 +76,8 @@ class FluidState:
     g: jax.Array               # f32 [Y, X]
     b: jax.Array               # f32 [Y, X]
     # Marker positions, coordinate-major: markers[0] = x, markers[1] = y.
-    # [2, M] rather than [M, 2] so the long axis sits in the TPU lane
-    # dimension (a [M, 2] layout wastes 126 of 128 lanes and pads HBM).
+    # [2, M] rather than [M, 2] so each coordinate is one contiguous
+    # plane (unit-stride loads for the per-marker arithmetic).
     # In the "slots" layout, flat index m = (k*Y + y)*X + x, i.e. the
     # array views as [2, K, Y, X] with the grid dims minor.
     markers: jax.Array         # f32 [2, M] world-space positions

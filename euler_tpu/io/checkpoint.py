@@ -3,9 +3,7 @@
 The reference has no persistence (SURVEY.md §5); here the state pytree
 and scenario round-trip losslessly through a single .npz file, so a run
 can stop and resume bit-exactly (including the RNG stream position and
-source-exhaustion flag).  For multi-host / sharded arrays use
-save_orbax/load_orbax instead, which goes through orbax-checkpoint's
-sharding-aware machinery.
+source-exhaustion flag).
 """
 
 from __future__ import annotations
@@ -31,11 +29,16 @@ def _cfg_to_json(cfg: SimConfig) -> str:
     return json.dumps(d)
 
 
+def _known(cls, d: dict) -> dict:
+    """The keys of `d` that are fields of `cls`: checkpoints written by
+    older versions carry options that no longer exist."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in names}
+
+
 def _cfg_from_json(s: str) -> SimConfig:
-    d = json.loads(s)
-    d["solver"] = SolverConfig(**d["solver"])
-    if "marker_tile" in d:
-        d["marker_tile"] = tuple(d["marker_tile"])  # JSON decodes a list
+    d = _known(SimConfig, json.loads(s))
+    d["solver"] = SolverConfig(**_known(SolverConfig, d["solver"]))
     return SimConfig(**d)
 
 
@@ -85,32 +88,3 @@ def load(path: str):
         state = FluidState(**fields)
         scn = Scenario(**{n: jnp.asarray(z[f"scn.{n}"]) for n in _SCN_FIELDS})
     return cfg, scn, state
-
-
-def save_orbax(path: str, cfg: SimConfig, scn: Scenario, state: FluidState):
-    """Sharding-aware checkpoint via orbax (for mesh-sharded batches)."""
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(
-        path,
-        {"state": state, "scenario": scn, "config_json": _cfg_to_json(cfg)},
-        force=True,
-    )
-    ckptr.wait_until_finished()
-
-
-def load_orbax(path: str, abstract_state=None, abstract_scn=None):
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.StandardCheckpointer()
-    target = None
-    if abstract_state is not None:
-        target = {
-            "state": abstract_state,
-            "scenario": abstract_scn,
-            "config_json": "",
-        }
-    tree = ckptr.restore(path, target)
-    cfg = _cfg_from_json(tree["config_json"])
-    return cfg, tree["scenario"], tree["state"]

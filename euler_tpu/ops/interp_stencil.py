@@ -1,13 +1,13 @@
-"""Stencil-select interpolation: the TPU-native fast path for grid
+"""Stencil-select interpolation: the gather-free fast path for grid
 advection.
 
 The CFL limit (0.75 cell-widths per substep, main.c:838) guarantees that
 every grid-advection backtrace lands within one cell of its site, and the
 staggered cross-component offsets are ±0.5 — so the 2x2 interpolation
 neighbourhood of interpolate (main.c:337-364) always lies inside the 3x3
-window centred on the site.  Instead of XLA gathers (random-access DMA,
-slow on TPU), each corner is a select over 9 shifted copies of the field:
-pure VPU elementwise work that XLA fuses into the surrounding arithmetic.
+window centred on the site.  Instead of XLA gathers (random-access
+loads), each corner is a select over 9 shifted copies of the field:
+pure elementwise work that XLA fuses into the surrounding arithmetic.
 
 Produces bit-identical results to euler_tpu.ops.interp.interpolate for
 in-window sample positions (same clamp, same modf split, same
@@ -51,7 +51,7 @@ def interpolate_stencil(cfg: SimConfig, q, fluid, idx_x, idx_y, celltype: str):
     # `idx_*` may be per-site [Y, X] (grid advection) or carry leading
     # batch dims, e.g. [K, Y, X] for slot-layout markers (K sample
     # points per home cell): the [Y, X] stacks and site grids broadcast
-    # against leading axes, keeping the grid dims in the TPU lanes.
+    # against leading axes, keeping the grid dims minor.
     site_x = jnp.arange(X, dtype=jnp.int32)[None, :]
     site_y = jnp.arange(Y, dtype=jnp.int32)[:, None]
     # offset of the interpolation base from the site: in {-1, 0}

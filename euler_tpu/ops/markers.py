@@ -10,7 +10,7 @@ Reference pieces:
     one marker per source cell per substep, capped globally, consuming
     the shared xorshift64* stream in y-major cell order.
 
-TPU-native reformulations:
+Data-parallel reformulations:
   * markers live in a fixed-capacity [M, 2] array with an alive mask
     instead of the reference's swap-remove compaction (main.c:109-115);
     per-cell counts (the observable) are order-independent.
@@ -256,8 +256,7 @@ def _march_markers(cfg: SimConfig, scn: Scenario, state: FluidState, dt):
     carry = (px, py, vx, vy, x_idx, y_idx, nx_idx, ny_idx, npx, npy,
              t_x, t_y, t_prev, t_near, dt_rem)
     # moderate unroll: full unrolling of the march explodes XLA compile
-    # time (the Pallas kernel is the fully-fused fast path; see
-    # euler_tpu/ops/pallas/marker_kernel.py)
+    # time
     carry = jax.lax.fori_loop(
         0, cfg.marker_march_iters, body, carry, unroll=2
     )
@@ -292,7 +291,7 @@ def get_marker_ops(cfg: SimConfig):
 
 
 def get_marker_pass(cfg: SimConfig):
-    """One function for the whole march + re-bin stage (may be fused)."""
+    """One function for the whole march + re-bin stage of a substep."""
     if cfg.marker_layout == "slots":
         from euler_tpu.ops import markers_slots as ms
 

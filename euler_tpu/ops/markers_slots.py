@@ -1,19 +1,17 @@
-"""Cell-slot marker layout: the TPU-native gather-free marker pipeline.
+"""Cell-slot marker layout: the gather-free marker pipeline.
 
 The reference (and euler_tpu.ops.markers, the exact-parity layout) keeps
 markers in one global array and looks everything up with random-access
-indexing.  On TPU those gathers dominate the entire step (~99% of frame
-time at 1024² — see the ablation notes in the commit history).
+indexing, one marker at a time.
 
 The slot layout stores markers by home cell, coordinate-major: flat
 marker m = (k*Y + y)*X + x holds marker k of cell (y, x), so the [2, M]
-marker array views as px/py of shape [K, Y, X] with the grid dims in the
-TPU sublane/lane dimensions (K in the lane dim would waste 120+ of 128
-lanes).  The first `marker_count[y, x]` slots of each cell are valid
-(front-compacted).  Because the CFL limit (0.75 cells/substep,
-main.c:838) bounds every per-substep interaction to the 3x3
-neighbourhood of the home cell, every operation becomes a dense stencil
-op:
+marker array views as px/py of shape [K, Y, X] with the grid dims
+minor, so every slot plane is a contiguous [Y, X] image.  The first
+`marker_count[y, x]` slots of each cell are valid (front-compacted).
+Because the CFL limit (0.75 cells/substep, main.c:838) bounds every
+per-substep interaction to the 3x3 neighbourhood of the home cell,
+every operation becomes a dense stencil op:
 
   * velocity sampling — the staggered 2x2 interpolation corners of a
     marker inside cell (y, x) lie in the 3x3 window (see
@@ -47,10 +45,8 @@ _FLT_MAX = np.float32(np.finfo(np.float32).max)
 
 # Re-binning insertion order: own cell first (stayers keep low slots —
 # the all-stay steady state maps slot k to slot k), then the 8
-# neighbour offsets lexicographically.  All three re-binning
-# implementations (this jnp twin, ops/pallas/rebin_kernel.py,
-# ops/pallas/marker_fused_kernel.py) MUST traverse identically: the
-# order defines slot assignment within a cell.
+# neighbour offsets lexicographically.  The order defines slot
+# assignment within a cell.
 OFFSETS_OWN_FIRST = [(0, 0)] + [
     (dy, dx)
     for dy in (-1, 0, 1)
@@ -144,17 +140,6 @@ def advect_markers_slots(cfg: SimConfig, scn: Scenario, state: FluidState, dt):
     """main.c:464-537 on the slot layout: identical arithmetic to
     euler_tpu.ops.markers.advect_markers, with every solid probe served
     by a 3x3 select instead of a gather."""
-    if cfg.use_pallas_markers:
-        from euler_tpu.ops.pallas.marker_kernel import advect_markers_pallas
-
-        px, py, _valid = slot_views(cfg, state)
-        opx, opy = advect_markers_pallas(
-            cfg, state.u, state.v, state.fluid, scn.solid, px, py, dt,
-            state.marker_count, cfg.pallas_interpret,
-        )
-        new_markers, _ = pack_slots(state, opx, opy)
-        return state.replace(markers=new_markers)
-
     Y, X = cfg.ny, cfg.nx
     h = np.float32(cfg.side_length)
     inv_h = np.float32(1.0) / h
@@ -226,8 +211,7 @@ def advect_markers_slots(cfg: SimConfig, scn: Scenario, state: FluidState, dt):
     carry = (px, py, vx, vy, x_idx, y_idx, nx_idx, ny_idx, npx, npy,
              t_x, t_y, t_prev, t_near, dt_rem)
     # moderate unroll: full unrolling of the march explodes XLA compile
-    # time (the Pallas kernel is the fully-fused fast path; see
-    # euler_tpu/ops/pallas/marker_kernel.py)
+    # time
     carry = jax.lax.fori_loop(
         0, cfg.marker_march_iters, body, carry, unroll=2
     )
@@ -254,25 +238,6 @@ def refresh_marker_counts_slots(cfg: SimConfig, scn: Scenario, state: FluidState
 
     px, py, valid = slot_views(cfg, state)
 
-    if cfg.use_pallas_markers:
-        from euler_tpu.ops.pallas.rebin_kernel import rebin_markers_pallas
-
-        dead = (scn.sink | scn.solid).astype(px.dtype)
-        opx, opy, ova, count, dropped = rebin_markers_pallas(
-            cfg, px, py, valid.astype(px.dtype), dead,
-            cfg.pallas_interpret,
-        )
-        markers, alive = pack_slots(state, opx, opy, ova != 0)
-        return state.replace(
-            markers=markers,
-            alive=alive,
-            prev_marker_count=state.marker_count,
-            marker_count=count,
-            alive_count=jnp.sum(count, dtype=jnp.int32),
-            dropped_markers=state.dropped_markers
-            + jnp.sum(dropped, dtype=jnp.int32),
-        )
-
     ncx = jnp.floor(px * inv_h).astype(jnp.int32)
     ncy = jnp.floor(py * inv_h).astype(jnp.int32)
     site_x = jnp.arange(X, dtype=jnp.int32)[None, :]
@@ -285,9 +250,8 @@ def refresh_marker_counts_slots(cfg: SimConfig, scn: Scenario, state: FluidState
     # Pass 1 (sequential over the 9 offsets — the running per-cell count
     # orders arrivals): which candidates land, in which destination slot.
     # The own cell (0, 0) is processed FIRST: stayers keep low slots (in
-    # the common all-stay case slot k maps to slot k), which is what lets
-    # the Pallas kernels take a triangular/copy fast path.  Arrivals
-    # from the 8 neighbours follow in lexicographic order.
+    # the common all-stay case slot k maps to slot k).  Arrivals from the
+    # 8 neighbours follow in lexicographic order.
     count = jnp.zeros((Y, X), jnp.int32)
     dropped = jnp.zeros((), jnp.int32)
     per_offset = []
@@ -338,78 +302,12 @@ def refresh_marker_counts_slots(cfg: SimConfig, scn: Scenario, state: FluidState
     )
 
 
-def marker_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState, dt,
-                      defer_alive: bool = False):
-    """March + re-bin, fused into one Pallas launch when enabled.
-
-    Semantically identical to advect_markers_slots followed by
-    refresh_marker_counts_slots (asserted bitwise in
-    tests/test_pallas_markers.py).
-
-    defer_alive=True skips materialising the alive plane (it is derivable
-    as k < marker_count whenever slots are front-compacted) and returns
-    `state.alive` UNCHANGED/stale — only valid when the caller never
-    reads alive until it re-derives it (sim.step_frame does, once per
-    frame instead of once per substep)."""
-    if cfg.use_pallas_markers and cfg.fuse_marker_pass:
-        Y, X, K = cfg.ny, cfg.nx, cfg.slots_per_cell
-        if state.markers.ndim == 3:
-            # persistent padded store [2K, Y+16, X+256] (sim.step_frame
-            # pads once per frame; marker_padded_store) — no per-substep
-            # jnp.pad of the slot planes
-            from euler_tpu.ops.pallas.marker_fused_kernel import (
-                march_rebin_padded,
-            )
-
-            assert defer_alive, "padded store requires the deferred-alive path"
-            dead = (scn.sink | scn.solid).astype(state.markers.dtype)
-            oslots, count, dropped = march_rebin_padded(
-                cfg, state.u, state.v, state.fluid, scn.solid,
-                state.markers, dt, state.marker_count, dead=dead,
-                interpret=cfg.pallas_interpret,
-            )
-            return finish_marker_pass(cfg, state, oslots, count, dropped,
-                                      defer_alive)
-        from euler_tpu.ops.pallas.marker_fused_kernel import march_rebin_pallas
-
-        # [2K, Y, X] is a FREE reshape of both store layouts (flat [2, M]
-        # and spatial [2, K, Y, X]) — no slice/stack HBM traffic
-        slots = state.markers.reshape(2 * K, Y, X)
-        dead = (scn.sink | scn.solid).astype(slots.dtype)
-        oslots, count, dropped = march_rebin_pallas(
-            cfg, state.u, state.v, state.fluid, scn.solid, slots, dt,
-            state.marker_count, cfg.pallas_interpret, dead=dead,
-        )
-        return finish_marker_pass(cfg, state, oslots, count, dropped,
-                                  defer_alive)
+def marker_pass_slots(cfg: SimConfig, scn: Scenario, state: FluidState, dt):
+    """March + re-bin: advect_markers_slots then
+    refresh_marker_counts_slots (the slot-layout marker pass of one
+    substep)."""
     state = advect_markers_slots(cfg, scn, state, dt)
     return refresh_marker_counts_slots(cfg, scn, state)
-
-
-def finish_marker_pass(cfg: SimConfig, state: FluidState, oslots, count,
-                       dropped, defer_alive: bool):
-    """Assemble the post-march/re-bin state from the fused kernel's
-    outputs (shared by the single-chip and shard_map'd kernel paths)."""
-    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
-    if defer_alive:
-        alive = state.alive  # stale; caller re-derives from count
-    else:
-        # front-compaction makes validity derivable: slot k live iff
-        # k < count (the kernel neither reads nor writes a valid plane)
-        valid = (
-            jax.lax.broadcasted_iota(jnp.int32, (K, Y, X), 0)
-            < count[None]
-        )
-        alive = valid if state.alive.ndim == 3 else valid.reshape(-1)
-    return state.replace(
-        markers=oslots.reshape(state.markers.shape),
-        alive=alive,
-        prev_marker_count=state.marker_count,
-        marker_count=count,
-        alive_count=jnp.sum(count, dtype=jnp.int32),
-        dropped_markers=state.dropped_markers
-        + jnp.sum(dropped, dtype=jnp.int32),
-    )
 
 
 def update_fluid_sources_slots(cfg: SimConfig, scn: Scenario,

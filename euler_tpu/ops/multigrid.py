@@ -2,7 +2,7 @@
 
 The reference preconditions PCG with serial incomplete Cholesky
 (main.c:580-627) — two loop-carried triangular sweeps that cannot map to
-TPU vector units.  Multigrid is the TPU-native answer at scale: every
+data-parallel hardware.  Multigrid is the data-parallel answer at scale: every
 ingredient (damped-Jacobi smoothing, 2x2 residual restriction, constant
 prolongation, masked 5-point operators) is a dense stencil op, and the
 iteration count of the outer PCG becomes grid-size independent instead
@@ -99,7 +99,7 @@ def _smooth(level: MGLevel, x, b, iters: int, omega: float,
 
     Fully data-parallel (each colour updates independently given the
     other) with a much better smoothing factor than damped Jacobi; this
-    is the standard TPU/GPU-friendly multigrid smoother.  `omega` = 1 is
+    is the standard data-parallel multigrid smoother.  `omega` = 1 is
     plain RB-GS.  `reverse` flips the colour order (used for
     post-smoothing so the V-cycle operator is symmetric).
     """
@@ -285,7 +285,7 @@ def _pair_weights(n: int, parity) -> jnp.ndarray:
 
 
 def _ldot(W, a):
-    """[Y, P]^T-contract: sum_y W[y, p] a[y, x] -> [P, X] (MXU, exact)."""
+    """[Y, P]^T-contract: sum_y W[y, p] a[y, x] -> [P, X] (exact)."""
     import jax
 
     return jax.lax.dot_general(
@@ -304,12 +304,13 @@ def _rdot(a, W):
 def coarsen_galerkin(level: EdgeLevel) -> EdgeLevel:
     """A_{l+1} = P^T A_l P for constant prolongation (2x2 blocks).
 
-    The 2x2 block reductions run as MXU matrix products with 0/1
-    pair-sum / parity-select matrices rather than
-    reshape(Y/2, 2, X/2, 2) + reduce: splitting the LANE dimension
-    relayouts the whole plane, and this build runs per SUBSTEP (the
-    fluid mask moves), where the reshape form profiled at ~30 ms/frame
-    at 1024² — 2.4x the entire fused solve kernel (round-5 trace)."""
+    The 2x2 block reductions run as matrix products with 0/1
+    pair-sum / parity-select matrices.  Precision.HIGHEST keeps them
+    exact: every output is a sum of at most two nonzero float32 terms,
+    so the result is bitwise equal to a reshape-and-sum (tested), where
+    a default-precision product may round through TF32 on a GPU.  The
+    reshape form costs O(N²) instead of O(N³); which form is faster on
+    the accelerator is ROADMAP Queue 1 item 4."""
     Y, X = level.c.shape
     xs, xe, xo = (_pair_weights(X, None), _pair_weights(X, 0),
                   _pair_weights(X, 1))
@@ -326,6 +327,30 @@ def coarsen_galerkin(level: EdgeLevel) -> EdgeLevel:
     e_c = _ldot(ys, _rdot(level.e, xo))   # edges crossing east
     n_c = _ldot(yo, _rdot(level.n, xs))   # edges crossing north
     act = _ldot(ys, _rdot(level.active.astype(level.c.dtype), xs)) > 0
+    return _edge_level(c_c, e_c, n_c, act)
+
+
+def coarsen_galerkin_reshape(level: EdgeLevel) -> EdgeLevel:
+    """coarsen_galerkin as reshape-and-sum, with the same association
+    (x pairs first, then y pairs): the reference its matrix-product form
+    must match bitwise."""
+    Y, X = level.c.shape
+
+    def q(a):
+        return a.reshape(Y // 2, 2, X // 2, 2)
+
+    def block_sum(a):
+        a = q(a)
+        return ((a[:, 0, :, 0] + a[:, 0, :, 1])
+                + (a[:, 1, :, 0] + a[:, 1, :, 1]))
+
+    e, n = q(level.e), q(level.n)
+    c_c = (block_sum(level.c)
+           + 2.0 * (e[:, 0, :, 0] + e[:, 1, :, 0])
+           + 2.0 * (n[:, 0, :, 0] + n[:, 0, :, 1]))
+    e_c = e[:, 0, :, 1] + e[:, 1, :, 1]
+    n_c = n[:, 1, :, 0] + n[:, 1, :, 1]
+    act = q(level.active).any(axis=(1, 3))
     return _edge_level(c_c, e_c, n_c, act)
 
 
@@ -373,9 +398,9 @@ def smooth_edge(level: EdgeLevel, x, b, iters: int, reverse: bool = False):
 # ---------------------------------------------------------------------------
 # Chebyshev smoothing / coarsest solve.
 #
-# TPU-measured motivation (PERF.md): the in-kernel W-cycle's cost is
-# dominated by latency-bound half-sweeps on the tiny coarse levels (a
-# 32² half-sweep is issue-overhead, not FLOPs).  A Chebyshev iteration
+# Motivation: the W-cycle's cost on the tiny coarse levels is per-op
+# overhead, not arithmetic, so fewer operator applies per smoothing
+# step is what counts there.  A Chebyshev iteration
 # needs ONE operator apply per degree (RB-GS needs two per iteration,
 # one per colour) and no colour masks, and as a fixed polynomial in A it
 # is exactly symmetric without the colour-order reversal — so the cycle

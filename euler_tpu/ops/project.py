@@ -16,7 +16,7 @@ Reproduces project (/root/reference/main.c:709-806):
 
 Preconditioning: the reference uses serial incomplete Cholesky
 (main.c:580-627) whose triangular sweeps do not parallelise; the
-TPU-native default is Jacobi (z = r / diag), fully data-parallel.  Both
+default here is Jacobi (z = r / diag), fully data-parallel.  Both
 are *preconditioners*: the tolerance-based stopping rule makes the
 converged pressure agree within float tolerance regardless of the choice.
 
@@ -183,48 +183,12 @@ def pcg_loop(cfg: SimConfig, b, apply_fn, precon, dot=None, inf_norm=None,
 def solve_pressure(cfg: SimConfig, b, a_diag, fluid, solid=None, x0=None):
     """PCG for A p = b (main.c:738-767).  Returns (p, iterations, resid).
 
-    `x0` (from cfg.solver.warm_start) seeds the iteration where the
-    dispatch target supports it (the jnp loop and the resident MG
-    kernel); the Jacobi and HBM-stream kernels ignore it — they are the
-    non-converged speed-mode / beyond-VMEM fallbacks, where the
-    iteration budget, not the guess, bounds the solve."""
-    if cfg.solver.use_pallas:
-        from euler_tpu.ops.pallas.pcg_kernel import (
-            pallas_solver_fits,
-            solve_pressure_pallas,
-        )
-
-        if pallas_solver_fits(cfg):
-            return solve_pressure_pallas(cfg, b, a_diag, fluid)
-        from euler_tpu.ops.pallas.mg_kernel import (
-            mg_pallas_fits,
-            solve_pressure_mg_pallas,
-        )
-
-        if solid is not None and mg_pallas_fits(cfg):
-            return solve_pressure_mg_pallas(cfg, b, a_diag, fluid, solid,
-                                            x0=x0)
-        from euler_tpu.ops.pallas.mg_stream_kernel import (
-            solve_pressure_mg_stream,
-            stream_mg_fits,
-        )
-
-        if stream_mg_fits(cfg):
-            # beyond the resident MG kernel's VMEM ceiling: one-launch
-            # MG-PCG with the fine level streamed from HBM
-            return solve_pressure_mg_stream(cfg, b, a_diag, fluid, solid)
-        from euler_tpu.ops.pallas.pcg_stream_kernel import (
-            solve_pressure_stream,
-            stream_solver_fits,
-        )
-
-        if stream_solver_fits(cfg):
-            # beyond-VMEM grids: HBM-streamed single-launch solve
-            return solve_pressure_stream(cfg, b, a_diag, fluid)
-
-    precon = _make_preconditioner(cfg, a_diag, fluid, solid, b.dtype)
-    return pcg_loop(cfg, b, lambda s: apply_a(a_diag, fluid, s), precon,
-                    x0=x0)
+    `x0` (from cfg.solver.warm_start) seeds the iteration."""
+    with jax.named_scope("mg_hierarchy"):
+        precon = _make_preconditioner(cfg, a_diag, fluid, solid, b.dtype)
+    with jax.named_scope("pcg_solve"):
+        return pcg_loop(cfg, b, lambda s: apply_a(a_diag, fluid, s), precon,
+                        x0=x0)
 
 
 def project(cfg: SimConfig, dt, u, v, fluid, solid, p0=None):

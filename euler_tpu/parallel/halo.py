@@ -4,7 +4,7 @@ The GSPMD path (euler_tpu.parallel.mesh) lets XLA's partitioner insert
 communication automatically.  This module is the hand-rolled alternative
 for the solver hot loop: grid rows are block-sharded over a mesh axis,
 the 5-point stencil's neighbour rows travel via jax.lax.ppermute (one
-hop along ICI per direction), and the PCG reductions are jax.lax.psum —
+exchange per direction), and the PCG reductions are jax.lax.psum —
 the stencil analogue of ring-attention-style sequence parallelism
 (SURVEY.md §5 "long-context").
 
@@ -29,7 +29,7 @@ def halo_exchange_rows(x, axis_name: str):
 
     `below[0]` is the last row of the previous shard (zeros at the global
     bottom edge), `above[0]` the first row of the next shard (zeros at the
-    global top).  One ppermute per direction — a single ICI hop each.
+    global top).  One ppermute per direction.
     """
     n = jax.lax.axis_size(axis_name)
     idx = jax.lax.axis_index(axis_name)
@@ -102,7 +102,7 @@ def _pcg_sharded(cfg: SimConfig, axis_names, b, a_diag, fluid):
         preconditioner.  Outer iterations grow mildly with the shard
         count (boundary error is re-propagated by CG, the classic
         one-level-Schwarz trade), but each costs only a local V/W-cycle
-        plus the two psum dots — no extra ICI traffic vs jacobi.
+        plus the two psum dots — no extra communication vs jacobi.
     """
     from euler_tpu.ops.project import pcg_loop
 

@@ -2,7 +2,7 @@
 spatial (row-block) domain decomposition of the grid.
 
 The reference has no parallelism of any kind (SURVEY.md §2c); this is the
-TPU-native scale-out design:
+scale-out design:
 
   * mesh axes ("data", "y", "x"): the batch dimension shards across
     "data" (pure data parallelism — the fluid analogue of DP), grid rows
@@ -11,7 +11,7 @@ TPU-native scale-out design:
   * shardings are expressed with jax.sharding.NamedSharding and applied
     through jit's in_shardings/out_shardings; XLA's SPMD partitioner
     inserts the halo exchanges for the shifted-array stencils and psums
-    for the solver's global reductions, riding ICI.
+    for the solver's global reductions.
   * marker arrays shard on "data" only and stay replicated across "y":
     particles move freely across row blocks, so their gathers/scatters
     against y-sharded grids become collective ops XLA plans for us.
@@ -91,7 +91,7 @@ def make_sharded_step(cfg: SimConfig, mesh: Mesh):
 
     XLA GSPMD propagates the shardings through the whole step (stencil
     halo exchange over "y", reductions psum over the mesh) — the
-    TPU-native replacement for hand-written communication.
+    replacement for hand-written communication.
     """
     return jax.jit(
         partial(step_frame_batched, cfg),

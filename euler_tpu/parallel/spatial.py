@@ -1,7 +1,7 @@
 """Spatial domain decomposition of the FULL step, markers included.
 
 The reference is single-threaded C with one fixed 100x40 grid
-(/root/reference/main.c:22-25); scale-out is new TPU-native capability
+(/root/reference/main.c:22-25); scale-out is new capability
 (SURVEY.md §2c).  euler_tpu.parallel.mesh shards the grid fields over a
 ("data", "y", "x") mesh but keeps marker arrays replicated across the
 spatial axes — fine for batch scale-out, useless for one huge grid.
@@ -13,7 +13,7 @@ real array axes that block-shard over ("y", "x") exactly like u/v:
 
   * the march reads grids/solids only in the 3x3 window of a marker's
     home cell (CFL <= 0.75), so XLA's SPMD partitioner serves it with
-    1-cell halo exchanges (collective-permute along ICI);
+    1-cell halo exchanges (collective-permutes between devices);
   * re-binning moves markers at most one cell, i.e. one halo exchange of
     the position planes per neighbour direction;
   * source emission is a scatter at S source cells (replicated indices —

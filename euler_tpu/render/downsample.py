@@ -2,7 +2,7 @@
 
 The reference renders its fixed 100x40 grid 1:1 into the terminal
 window (main.c:914-951); grids beyond the window are simply clipped.
-At TPU scales (1024²+) clipping shows a corner of the domain, so this
+At large grids (1024²+) clipping shows a corner of the domain, so this
 module pools the interior into terminal-sized blocks ON DEVICE — the
 host transfer stays ~5 bytes per *character cell*, not per grid cell.
 

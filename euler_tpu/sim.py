@@ -24,103 +24,45 @@ from euler_tpu.config import SimConfig
 from euler_tpu.core.state import FluidState, Scenario
 from euler_tpu.ops.advect import advect_p, advect_u, advect_v
 from euler_tpu.ops.extrapolate import extrapolate
-from euler_tpu.ops.forces import (
-    apply_body_forces,
-    calculate_timestep,
-    max_speed_sq,
-    zero_bounds,
-)
-from euler_tpu.ops.markers import (
-    advect_markers,
-    get_marker_ops,
-    get_marker_pass,
-    refresh_marker_counts,
-    update_fluid_sources,
-)
+from euler_tpu.ops.forces import apply_body_forces, max_speed_sq, zero_bounds
+from euler_tpu.ops.markers import get_marker_ops, get_marker_pass
 from euler_tpu.ops.project import project
 
 
-def _use_fused_substep(cfg: SimConfig, scn: Scenario) -> bool:
-    """Whole grid half of the substep (extrapolate -> zero -> advect ->
-    gravity -> zero -> divergence -> MG-PCG -> clamp -> face update ->
-    maxsq) as ONE Pallas launch — a substep is then exactly two launches
-    (marker kernel + this).  Requires: no sources (the grid stage must
-    see the post-emission fluid mask, which source scenarios only know
-    after the host-side RNG scan — scn.num_sources is static), mono
-    (rainbow advects colours with the intermediate velocities), the mg
-    preconditioner, and the whole hierarchy fitting VMEM."""
-    if cfg.rainbow or cfg.marker_layout != "slots":
-        return False
-    if not (cfg.solver.use_pallas and cfg.solver.fuse_projection):
-        return False
-    if scn.num_sources != 0:
-        return False
-    from euler_tpu.ops.pallas.substep_kernel import (
-        substep_fused_fits,
-        substep_jacobi_fused_fits,
-    )
-
-    if cfg.solver.preconditioner == "mg":
-        return substep_fused_fits(cfg)
-    if cfg.solver.preconditioner == "jacobi":
-        return substep_jacobi_fused_fits(cfg)
-    return False
-
-
-def _use_fused_projection(cfg: SimConfig) -> bool:
-    """Projection (divergence -> PCG -> clamp -> face update -> maxsq)
-    as ONE Pallas launch: on when the solver's Pallas path is on and the
-    fused kernel's 9 VMEM planes fit (~<= 1448²)."""
-    if not (cfg.solver.use_pallas and cfg.solver.fuse_projection):
-        return False
-    from euler_tpu.ops.pallas.pcg_kernel import fused_projection_fits
-
-    return fused_projection_fits(cfg)
-
-
 def substep(cfg: SimConfig, scn: Scenario, state: FluidState, dt,
-            active=None, defer_alive: bool = False, marker_pass=None,
-            mg_coarse=None):
+            active=None):
     """One CFL substep (the body of main.c:851-893), dt already chosen.
 
-    Returns (state, msq) where msq = maxsq(u) + maxsq(v) of the projected
-    velocities (main.c:808-820) — the input to the NEXT substep's CFL dt.
-    With the fused projection kernel the reduction comes out of the same
-    launch; otherwise it is computed with an XLA reduce.
+    Returns (state, msq, iterations) where msq = maxsq(u) + maxsq(v) of
+    the projected velocities (main.c:808-820) — the input to the NEXT
+    substep's CFL dt — and iterations is the pressure solve's PCG count.
 
     `active` masks source emission (an inactive substep with dt = 0 is
     then a bitwise no-op on the marker store — see step_frame).
-    `defer_alive` skips materialising the alive plane per substep
-    (slots + fused kernel only; the caller re-derives it).
-    `marker_pass` overrides the march+re-bin implementation (same
-    contract as markers_slots.marker_pass_slots) — used by
-    parallel/pallas_shard to substitute the shard_map'd kernel.
-    `mg_coarse` (mg_kernel.mg_coarse_bundle) is the frame-stale coarse
-    hierarchy for the fused mg path (cfg.solver.mg_frame_hierarchy)."""
+
+    Each stage runs under a `jax.named_scope`, so a device trace
+    attributes its kernels to the stage (tools/profile_step.py)."""
     solid = scn.solid
     _, _, fluid_sources = get_marker_ops(cfg)
 
-    # marker pass (march + re-bin, possibly one fused Pallas launch)
-    # uses the velocity field and fluid mask from the end of the
-    # previous substep (including last substep's source emissions)
-    if cfg.marker_layout == "slots":
-        from euler_tpu.ops.markers_slots import marker_pass_slots
-
-        do_pass = marker_pass_slots if marker_pass is None else marker_pass
-        state = do_pass(cfg, scn, state, dt, defer_alive=defer_alive)
-    else:
+    # marker pass (march + re-bin) uses the velocity field and fluid
+    # mask from the end of the previous substep (including last
+    # substep's source emissions)
+    with jax.named_scope("marker_pass"):
         state = get_marker_pass(cfg)(cfg, scn, state, dt)
 
-    if cfg.rainbow:
-        # colours extrapolate before sources run (main.c:859-863)
-        fluid, prev = state.fluid, state.prev_fluid
-        state = state.replace(
-            r=extrapolate(cfg, state.r, fluid, prev, "p"),
-            g=extrapolate(cfg, state.g, fluid, prev, "p"),
-            b=extrapolate(cfg, state.b, fluid, prev, "p"),
-        )
+    with jax.named_scope("grid_stage"):
+        if cfg.rainbow:
+            # colours extrapolate before sources run (main.c:859-863)
+            fluid, prev = state.fluid, state.prev_fluid
+            state = state.replace(
+                r=extrapolate(cfg, state.r, fluid, prev, "p"),
+                g=extrapolate(cfg, state.g, fluid, prev, "p"),
+                b=extrapolate(cfg, state.b, fluid, prev, "p"),
+            )
 
-    state = fluid_sources(cfg, scn, state, active=active)
+    with jax.named_scope("sources"):
+        state = fluid_sources(cfg, scn, state, active=active)
 
     # velocity extrapolation and boundary zeroing see the post-emission
     # fluid mask (emission increments marker_count, main.c:289)
@@ -138,36 +80,7 @@ def substep(cfg: SimConfig, scn: Scenario, state: FluidState, dt,
     else:
         dt_proj = jnp.where(active, dt, jnp.asarray(jnp.inf, dt.dtype))
 
-    if _use_fused_substep(cfg, scn):
-        from euler_tpu.ops.pallas.substep_kernel import (
-            project_substep_jacobi,
-            project_substep_mg,
-        )
-
-        if cfg.solver.preconditioner == "mg":
-            u2, v2, _iters, _resid, msq, p2 = project_substep_mg(
-                cfg, dt, dt_proj, state.u, state.v, fluid, prev, solid,
-                state.p, interpret=cfg.solver.pallas_interpret,
-                mg_coarse=mg_coarse,
-            )
-        else:
-            u2, v2, _iters, _resid, msq = project_substep_jacobi(
-                cfg, dt, dt_proj, state.u, state.v, fluid, prev, solid,
-                interpret=cfg.solver.pallas_interpret,
-            )
-            p2 = state.p  # jacobi speed mode never warm-starts
-        return state.replace(u=u2, v=v2, p=p2), msq
-
-    if cfg.use_pallas_grid and not cfg.rainbow:
-        # fused Pallas grid stage (extrapolate -> zero -> advect ->
-        # gravity -> zero); rainbow needs the intermediate velocities
-        # for colour advection, so it takes the op-by-op path
-        from euler_tpu.ops.pallas.grid_kernel import grid_stage_pallas
-
-        ut, vt = grid_stage_pallas(
-            cfg, state.u, state.v, fluid, prev, solid, dt
-        )
-    else:
+    with jax.named_scope("grid_stage"):
         u = extrapolate(cfg, state.u, fluid, prev, "u")
         v = extrapolate(cfg, state.v, fluid, prev, "v")
         u = zero_bounds(cfg, u, fluid, solid, "u")
@@ -186,31 +99,17 @@ def substep(cfg: SimConfig, scn: Scenario, state: FluidState, dt,
         ut = zero_bounds(cfg, ut, fluid, solid, "u")
         vt = zero_bounds(cfg, vt, fluid, solid, "v")
 
-    if _use_fused_projection(cfg):
-        from euler_tpu.ops.pallas.pcg_kernel import project_pallas
-
-        u2, v2, _iters, _resid, msq = project_pallas(
-            cfg, dt_proj, ut, vt, fluid, solid
-        )
-        if state.p is not None:
-            # this kernel does not expose its pressure, so the carried
-            # plane would silently stop meaning "previous substep
-            # pressure"; zero it so any downstream mg warm start
-            # degrades to a cold start rather than consuming an
-            # arbitrary-age guess (ADVICE r4)
-            state = state.replace(p=jnp.zeros_like(state.p))
-    else:
-        u2, v2, _info = project(cfg, dt_proj, ut, vt, fluid, solid,
-                                p0=state.p)
+    with jax.named_scope("projection"):
+        u2, v2, info = project(cfg, dt_proj, ut, vt, fluid, solid,
+                               p0=state.p)
         msq = max_speed_sq(cfg, u2, v2)
-        if state.p is not None:
-            # the solver may run wider than the state (f64 parity
-            # configs); the carry keeps the state dtype
-            return state.replace(
-                u=u2, v=v2,
-                p=_info["pressure"].astype(state.p.dtype)), msq
-        return state.replace(u=u2, v=v2), msq
-    return state.replace(u=u2, v=v2), msq
+    iters = info["iterations"]
+    if state.p is not None:
+        # the solver may run wider than the state (f64 parity configs);
+        # the carry keeps the state dtype
+        return state.replace(
+            u=u2, v=v2, p=info["pressure"].astype(state.p.dtype)), msq, iters
+    return state.replace(u=u2, v=v2), msq, iters
 
 
 def _tree_select(pred, on_true, on_false):
@@ -231,22 +130,24 @@ def _dt_from_msq(cfg: SimConfig, msq, frame_time):
     return jnp.minimum(dt, frame_time).astype(f)
 
 
-def step_frame(cfg: SimConfig, scn: Scenario, state: FluidState,
-               marker_pass=None) -> FluidState:
-    return _step_frame_impl(cfg, scn, state, marker_pass)[0]
+def step_frame(cfg: SimConfig, scn: Scenario, state: FluidState) -> FluidState:
+    return _step_frame_impl(cfg, scn, state)[0]
 
 
 def step_frame_stats(cfg: SimConfig, scn: Scenario, state: FluidState):
-    """(state', n_active): like step_frame, plus the number of ACTIVE
-    CFL substeps the frame actually ran (the reference's data-dependent
-    loop count, main.c:851).  The benchmark reports this so the nominal
-    8-substep cell-steps metric is transparent about the real substep
-    occupancy."""
+    """(state', stats): like step_frame, plus the frame's solver counters:
+
+      * stats["active_substeps"]: the number of ACTIVE CFL substeps the
+        frame actually ran (the reference's data-dependent loop count,
+        main.c:851) — the nominal 8-substep cell-steps metric is
+        transparent about the real substep occupancy;
+      * stats["pcg_iterations"]: int32 [max_substeps], each substep's PCG
+        iteration count (0 for inactive substeps, whose zero RHS exits
+        before the loop)."""
     return _step_frame_impl(cfg, scn, state)
 
 
-def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState,
-                     marker_pass=None):
+def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState):
     """One 0.1 s frame: masked fixed-trip substep loop + frame counter.
 
     The CFL maxsq reduction runs once on the incoming state; every
@@ -258,30 +159,11 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState,
     emission make the marker pass a BITWISE no-op on the marker store
     (positions advance by 0*v, re-binning maps slot k to slot k, the
     emission scan draws nothing), so only the grid fields need the
-    activity select — the [2, K, Y, X] marker-plane select was ~1
-    ms/frame at 1024².  The global layout keeps the full tree-select
-    (its swap-remove compaction is order-dependent)."""
+    activity select, not the [2, K, Y, X] marker planes.  The global
+    layout keeps the full tree-select (its swap-remove compaction is
+    order-dependent)."""
     f = state.u.dtype
     fast = cfg.marker_layout == "slots"
-    defer_alive = fast and (
-        (cfg.use_pallas_markers and cfg.fuse_marker_pass)
-        or marker_pass is not None
-    )
-
-    # Frame-stale coarse hierarchy (cfg.solver.mg_frame_hierarchy): one
-    # Galerkin build per FRAME from the incoming mask, closed over by
-    # the substep scan, instead of one per substep inside it.  Fine
-    # operator + fine Chebyshev row stay per-substep exact (see
-    # mg_kernel.mg_coarse_bundle for the PCG-validity argument).
-    mg_coarse = None
-    if (cfg.solver.mg_frame_hierarchy
-            and cfg.solver.preconditioner == "mg"
-            and _use_fused_substep(cfg, scn)):
-        from euler_tpu.ops.pallas.mg_kernel import mg_coarse_bundle
-        from euler_tpu.ops.project import pressure_matrix_diag
-
-        a0 = pressure_matrix_diag(cfg, scn.solid, state.fluid)
-        mg_coarse = mg_coarse_bundle(cfg, a0, state.fluid)
 
     def body(carry, _):
         state, frame_time, msq = carry
@@ -291,10 +173,8 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState,
         # marker pass an identity (the projection's divide-by-dt infs
         # land only in select-discarded grid fields)
         dt = jnp.where(active, dt, jnp.asarray(0.0 if fast else 1.0, f))
-        new_state, new_msq = substep(cfg, scn, state, dt, active=active,
-                                     defer_alive=defer_alive,
-                                     marker_pass=marker_pass,
-                                     mg_coarse=mg_coarse)
+        new_state, new_msq, iters = substep(cfg, scn, state, dt,
+                                            active=active)
         if fast:
             sel = lambda a, b: jnp.where(active, a, b)
             state = new_state.replace(
@@ -315,53 +195,17 @@ def _step_frame_impl(cfg: SimConfig, scn: Scenario, state: FluidState,
             state = _tree_select(active, new_state, state)
         msq = jnp.where(active, new_msq.astype(msq.dtype), msq)
         frame_time = jnp.where(active, frame_time - dt, frame_time)
-        return (state, frame_time, msq), active
-
-    # Persistent padded slot store: pad the slot planes ONCE per frame
-    # to [2K, Y+16, X+256] (interior at (8, 128)) so the fused marker
-    # kernel round-trips them through the scan without the per-substep
-    # jnp.pad copies (~1.4 ms/frame at 1024²).  Slot pads may go stale /
-    # garbage — pad-cell counts are zero, so they are never read.  The
-    # padded kernel has no sources/rainbow/sharding support, hence the
-    # gates (flagship bench path only).
-    padded_store = (
-        cfg.marker_padded_store
-        and defer_alive
-        and marker_pass is None
-        and not cfg.rainbow
-        and scn.num_sources == 0
-        and state.markers.ndim != 3
-    )
-    orig_markers = state.markers
-    if padded_store:
-        from euler_tpu.ops.pallas.marker_fused_kernel import pad_slot_store
-
-        state = state.replace(markers=pad_slot_store(cfg, state.markers))
+        iters = jnp.where(active, iters, 0).astype(jnp.int32)
+        return (state, frame_time, msq), (active, iters)
 
     frame_time0 = jnp.asarray(cfg.frame_time, f)
     msq0 = max_speed_sq(cfg, state.u, state.v)
-    (state, _, _), actives = jax.lax.scan(
+    (state, _, _), (actives, iters) = jax.lax.scan(
         body, (state, frame_time0, msq0), None, length=cfg.max_substeps
     )
-    n_active = jnp.sum(actives.astype(jnp.int32))
-    if padded_store:
-        from euler_tpu.ops.pallas.marker_fused_kernel import unpad_slot_store
-
-        state = state.replace(
-            markers=unpad_slot_store(cfg, state.markers, orig_markers)
-        )
-    if defer_alive:
-        # re-derive the alive plane once per frame (stale through the
-        # scan; slots are front-compacted so alive == k < count)
-        K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
-        valid = (
-            jax.lax.broadcasted_iota(jnp.int32, (K, Y, X), 0)
-            < state.marker_count[None]
-        )
-        state = state.replace(
-            alive=valid if state.alive.ndim == 3 else valid.reshape(-1)
-        )
-    return state.replace(frame_count=state.frame_count + 1), n_active
+    stats = {"active_substeps": jnp.sum(actives.astype(jnp.int32)),
+             "pcg_iterations": iters}
+    return state.replace(frame_count=state.frame_count + 1), stats
 
 
 @partial(jax.jit, static_argnums=0)

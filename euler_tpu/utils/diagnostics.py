@@ -5,15 +5,13 @@ The reference's equivalents:
     grids (bit-rotted there; functional here, SURVEY.md §2 #25);
   * SHERLOCK build option / enable_fpmath_asserts (misc/debug.c:4-10) —
     trap-on-NaN, mapped to jax_debug_nans;
-  * no profiling beyond frame pacing — here: step timing and
-    jax.profiler trace capture.
+  * no profiling beyond frame pacing — here the device trace is taken
+    by tools/profile_step.py and the timing by bench.py.
 """
 
 from __future__ import annotations
 
-import contextlib
 import io
-import time
 
 import numpy as np
 
@@ -55,47 +53,3 @@ def dump_pressure_system(cfg: SimConfig, scn, state, dt) -> str:
     dump_octave_matrix("fluid", np.asarray(fluid).astype(np.int32), out)
     dump_octave_matrix("b", b, out)
     return out.getvalue()
-
-
-class StepTimer:
-    """Steps/sec + cell-steps/sec counter (SURVEY.md §5 'tracing')."""
-
-    def __init__(self, cfg: SimConfig):
-        self.cfg = cfg
-        self.frames = 0
-        self.t0 = time.perf_counter()
-
-    def tick(self, n: int = 1):
-        self.frames += n
-
-    @property
-    def frames_per_sec(self) -> float:
-        dt = time.perf_counter() - self.t0
-        return self.frames / dt if dt > 0 else 0.0
-
-    @property
-    def cell_steps_per_sec(self) -> float:
-        return (
-            self.frames_per_sec
-            * self.cfg.nx
-            * self.cfg.ny
-            * self.cfg.max_substeps
-        )
-
-    def summary(self) -> str:
-        return (
-            f"{self.frames} frames, {self.frames_per_sec:.2f} fps, "
-            f"{self.cell_steps_per_sec:.3g} cell-steps/s"
-        )
-
-
-@contextlib.contextmanager
-def profiler_trace(logdir: str = "/tmp/euler_tpu_trace"):
-    """jax.profiler trace capture around a block of steps."""
-    import jax
-
-    jax.profiler.start_trace(logdir)
-    try:
-        yield logdir
-    finally:
-        jax.profiler.stop_trace()

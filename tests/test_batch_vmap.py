@@ -1,108 +1,48 @@
-"""vmap over the fused Pallas kernels (the custom_vmap batching rule).
-
-VERDICT r2 item 7: vmap x Pallas must be a supported, tested DP path.
-march_rebin_pallas carries a custom_vmap rule (Python-unrolled launches —
-each launch saturates the chip, so sequential launches lose nothing);
-these tests pin that rule against per-instance calls, and the batched
-full-step path (parallel/batch.py) against per-instance stepping with
-the fused kernels on.
-"""
-
-import dataclasses
+"""vmap over the whole frame on the slot layout (parallel/batch.py's
+step_frame_batched): each batch member must match the same instance
+stepped alone, mono and with sources (the emission scan under vmap)."""
 
 import numpy as np
-import jax
-import jax.numpy as jnp
+import pytest
 
 from euler_tpu.config import SimConfig, SolverConfig
-from euler_tpu.core.presets import dam_break
+from euler_tpu.core.scenario import build_scenario
+from euler_tpu.parallel.batch import build_batch, step_frame_batched_jit
 from euler_tpu.sim import step_frame_jit
 
+CFG = SimConfig(
+    nx=48, ny=32, marker_layout="slots",
+    solver=SolverConfig(preconditioner="mg", tol_rel=1e-4, warm_start=True,
+                        max_iterations=60),
+)
 
-def _cfg(**kw):
-    return SimConfig(
-        nx=64, ny=64, marker_layout="slots",
-        solver=SolverConfig(max_iterations=60, dtype="float32"),
-        **kw,
-    )
+TEXTS = {
+    "mono": [b"0000\n0000\n", b"  00\n  00\nXX\n"],
+    # sources ("?") emit through the RNG scan; different source counts
+    # exercise the padded source lists
+    "sources": [b"??\n\n  00\n  00\n", b"?  ?   ?\n 00\nXX  X\n"],
+}
 
 
-def test_vmap_fused_marker_kernel_matches_per_instance():
-    from euler_tpu.ops.pallas.marker_fused_kernel import march_rebin_pallas
-
-    cfg = _cfg()
-    K, Y, X = cfg.slots_per_cell, cfg.ny, cfg.nx
-    scn, st0 = dam_break(cfg, seed=0)
-    _, st1 = dam_break(cfg, seed=1)
+@pytest.mark.parametrize("kind", sorted(TEXTS))
+def test_vmap_frames_match_per_instance(kind):
+    texts = TEXTS[kind]
+    scn, st = build_batch(texts, CFG)
     for _ in range(2):
-        st0 = step_frame_jit(cfg, scn, st0)
-        st1 = step_frame_jit(cfg, scn, st1)
+        st = step_frame_batched_jit(CFG, scn, st)
 
-    dt = jnp.float32(0.03)
-    dead = (scn.sink | scn.solid).astype(jnp.float32)
-
-    def one(st):
-        return march_rebin_pallas(
-            cfg, st.u, st.v, st.fluid, scn.solid,
-            st.markers.reshape(2 * K, Y, X), dt, st.marker_count,
-            interpret=True, dead=dead,
-        )
-
-    stack = lambda a, b: jnp.stack([a, b])
-    u = stack(st0.u, st1.u)
-    v = stack(st0.v, st1.v)
-    fl = stack(st0.fluid, st1.fluid)
-    slots = stack(st0.markers.reshape(2 * K, Y, X),
-                  st1.markers.reshape(2 * K, Y, X))
-    cnt = stack(st0.marker_count, st1.marker_count)
-
-    # solid/dt/dead/count broadcast or batch per the rule's in_batched
-    vslots, vcnt, vdrop = jax.vmap(
-        lambda u, v, fl, slots, cnt: march_rebin_pallas(
-            cfg, u, v, fl, scn.solid, slots, dt, cnt,
-            interpret=True, dead=dead,
-        )
-    )(u, v, fl, slots, cnt)
-
-    for i, st in enumerate((st0, st1)):
-        oslots, ocnt, odrop = one(st)
-        np.testing.assert_array_equal(np.asarray(vcnt[i]),
-                                      np.asarray(ocnt))
-        np.testing.assert_array_equal(np.asarray(vdrop[i]),
-                                      np.asarray(odrop))
-        np.testing.assert_array_equal(np.asarray(vslots[i]),
-                                      np.asarray(oslots))
-
-
-def test_batched_full_step_with_fused_kernels():
-    """parallel/batch.py's vmap path with the fused marker kernel and the
-    fused substep on (interpret mode): must match per-instance frames
-    exactly on counts."""
-    from euler_tpu.parallel.batch import build_batch, step_frame_batched
-
-    cfg = _cfg(
-        use_pallas_markers=True,
-        pallas_interpret=True,
-    )
-    cfg = dataclasses.replace(
-        cfg, solver=dataclasses.replace(
-            cfg.solver, use_pallas=True, fuse_projection=True,
-            pallas_interpret=True, preconditioner="mg", tol_rel=1e-4,
-        ),
-    )
-    texts = [
-        b"0000\n0000\n",
-        b"  00\n  00\nXX\n",
-    ]
-    scn, st = build_batch(texts, cfg)
-    out = step_frame_batched(cfg, scn, st)
-
-    from euler_tpu.core.scenario import build_scenario
-    from euler_tpu.sim import step_frame
-
-    for i, t in enumerate(texts):
-        scn1, st1 = build_scenario(t, cfg)
-        ref = step_frame(cfg, scn1, st1)
-        np.testing.assert_array_equal(
-            np.asarray(out.marker_count[i]), np.asarray(ref.marker_count)
-        )
+    for i, text in enumerate(texts):
+        scn1, st1 = build_scenario(text, CFG)
+        for _ in range(2):
+            st1 = step_frame_jit(CFG, scn1, st1)
+        np.testing.assert_array_equal(np.asarray(st.marker_count[i]),
+                                      np.asarray(st1.marker_count))
+        np.testing.assert_allclose(np.asarray(st.u[i]), np.asarray(st1.u),
+                                   atol=1e-6)
+        np.testing.assert_allclose(np.asarray(st.v[i]), np.asarray(st1.v),
+                                   atol=1e-6)
+        assert int(st.alive_count[i]) == int(st1.alive_count)
+        np.testing.assert_array_equal(np.asarray(st.rng[i]),
+                                      np.asarray(st1.rng))
+    if kind == "sources":
+        assert int(np.asarray(st.alive_count).sum()) > 0

@@ -40,7 +40,7 @@ def test_cli_checkpoint_and_resume(tmp_path):
     """Headless CLI writes periodic checkpoints; --load resumes from one.
 
     Resuming from the checkpoint of frame N must reproduce the straight
-    run's state at frame N+K bit-exactly (TPU extension; the reference
+    run's state at frame N+K bit-exactly (an extension; the reference
     has no persistence, SURVEY.md §5).
     """
     import subprocess
@@ -70,3 +70,29 @@ def test_cli_checkpoint_and_resume(tmp_path):
     np.testing.assert_array_equal(
         np.asarray(st.marker_count), np.asarray(st2.marker_count)
     )
+
+
+def test_checkpoint_with_removed_options_loads(tmp_path):
+    """Checkpoints written before the kernel options were removed carry
+    their keys in config_json; loading skips them."""
+    import json
+
+    cfg = SimConfig()
+    scn, st = build_scenario(read_scenario("basic.txt"), cfg)
+    path = str(tmp_path / "old.npz")
+    checkpoint.save(path, cfg, scn, st)
+    with np.load(path) as z:
+        arrays = dict(z)
+    old = json.loads(arrays["config_json"].tobytes().decode())
+    old.update(marker_tile=[128, 512], use_pallas_markers=True,
+               fuse_marker_pass=True, marker_padded_store=False,
+               use_pallas_grid=False, pallas_interpret=False)
+    old["solver"].update(use_pallas=True, fuse_projection=True,
+                         pallas_interpret=False, mg_frame_hierarchy=False)
+    arrays["config_json"] = np.frombuffer(json.dumps(old).encode(), np.uint8)
+    np.savez(path, **arrays)
+
+    cfg2, scn2, st2 = checkpoint.load(path)
+    assert cfg2 == cfg
+    np.testing.assert_array_equal(np.asarray(st2.markers),
+                                  np.asarray(st.markers))

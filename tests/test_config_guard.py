@@ -20,9 +20,9 @@ def test_solver_defaults_are_reference_semantics():
     assert s.tol == 1e-6
     assert s.tol_rel == 0.0
     assert s.max_iterations == 100
-    # performance kernels are opt-in, never default
-    assert s.use_pallas is False
-    assert s.fuse_projection is False
+    # the converged-mode knobs are opt-in, never default
+    assert s.preconditioner == "jacobi"
+    assert s.warm_start is False
 
 
 def test_sim_defaults_are_reference_semantics():
@@ -34,8 +34,7 @@ def test_sim_defaults_are_reference_semantics():
     # the reference's cross-marker dt leak (main.c:465-537) is semantics,
     # not an optimisation — required for the >=50-frame byte horizons
     assert c.marker_dt_carry is True
-    assert c.use_pallas_markers is False
-    assert c.use_pallas_grid is False
+    assert c.advect_impl == "stencil"  # bit-identical to "gather"
     # reference compile-time constants (main.c:33-43)
     assert c.max_substeps == 8
     assert c.frame_time == 0.1
@@ -46,10 +45,10 @@ def test_sim_defaults_are_reference_semantics():
 def test_bench_config_is_not_the_parity_config():
     """The benchmark's operating point must differ from the defaults in
     exactly the knobs it sets — i.e. constructing a SimConfig the way
-    test_ref_binary does must NOT pick up slots/pallas/tol_rel."""
+    test_ref_binary does must NOT pick up slots/mg/tol_rel."""
     parity = SimConfig(solver=SolverConfig(dtype="float64",
                                            max_iterations=400))
     assert parity.marker_layout == "global"
     assert parity.solver.tol_rel == 0.0
-    assert parity.solver.use_pallas is False
+    assert parity.solver.warm_start is False
     assert parity.solver.preconditioner == "jacobi"

@@ -93,3 +93,37 @@ def test_spatial_sharded_matches_unsharded():
         np.asarray(got.rng), np.asarray(ref.rng)
     )
     assert int(got.alive_count) == int(ref.alive_count)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_spatial_step_converged_mode(n):
+    """The converged mode (Galerkin MG-PCG, warm start) sharded over n
+    devices on the mesh shape spatial_mesh picks, against one device:
+    same marker counts; velocities to the solve's float32 tolerance (the
+    sharded reductions sum in another order)."""
+    from euler_tpu.core.presets import dam_break
+
+    cfg = SimConfig(nx=64, ny=64, marker_layout="slots", max_substeps=4,
+                    solver=SolverConfig(preconditioner="mg", tol_rel=1e-4,
+                                        warm_start=True, max_iterations=60))
+    scn, st = dam_break(cfg)
+    ref = to_spatial(cfg, st)
+    for _ in range(2):
+        ref = step_frame_jit(cfg, scn, ref)
+
+    mesh = spatial_mesh(n)
+    scn_s, got = shard_spatial(cfg, mesh, scn, st)
+    step = make_spatial_step(cfg, mesh)
+    for _ in range(2):
+        got = step(scn_s, got)
+    assert len(got.u.sharding.device_set) == n
+    assert len(got.markers.sharding.device_set) == n
+
+    np.testing.assert_array_equal(np.asarray(got.marker_count),
+                                  np.asarray(ref.marker_count))
+    scale = float(np.abs(np.asarray(ref.u)).max())
+    np.testing.assert_allclose(np.asarray(got.u), np.asarray(ref.u),
+                               atol=5e-4 * scale)
+    np.testing.assert_allclose(np.asarray(got.v), np.asarray(ref.v),
+                               atol=5e-4 * scale)
+    assert int(got.dropped_markers) == int(ref.dropped_markers)

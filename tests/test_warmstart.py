@@ -4,27 +4,26 @@ The reference starts every PCG solve from zero (main.c:738-741).  With
 warm_start the previous substep's clamped pressure seeds the next solve
 while the stopping tolerance stays anchored to ||b||_inf — so converged
 results agree with a cold solve to the solver tolerance, with fewer
-iterations.  Covers: the jnp pcg_loop, the standalone resident MG
-kernel (x0 operand), and the fused substep kernel (p0 input / p output
-carry), all in interpret mode on CPU.
+iterations.  Covers the MG-PCG solve (x0), the projection (p0
+re-masked to the current fluid), whole frames (the pressure carry), and
+inactive substeps.
 """
 
 import dataclasses
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 
 from euler_tpu.config import SimConfig, SolverConfig
 from euler_tpu.core.presets import dam_break
-from euler_tpu.ops.pallas.mg_kernel import solve_pressure_mg_pallas
-from euler_tpu.ops.pallas.substep_kernel import project_substep_mg
 from euler_tpu.ops.project import (
     divergence_rhs,
     pressure_matrix_diag,
     project,
     solve_pressure,
 )
-from euler_tpu.sim import step_frame_jit
+from euler_tpu.sim import step_frame_jit, step_frame_stats
 
 
 def _cfg(**solver_kw):
@@ -55,7 +54,7 @@ def _system(cfg, scn, st, dt):
 
 
 def test_pcg_loop_warm_same_solution_fewer_iters():
-    cfg = _cfg(use_pallas=False)
+    cfg = _cfg()
     scn, st = _developed(cfg)
     dt = jnp.float32(0.03)
     b, a_diag, fluid = _system(cfg, scn, st, dt)
@@ -66,7 +65,7 @@ def test_pcg_loop_warm_same_solution_fewer_iters():
     # previous substep's pressure has
     x0 = jnp.where(fluid, p_cold * 1.01, 0.0)
     p_warm, it_warm, r_warm = solve_pressure(
-        _warm(cfg, use_pallas=False), b, a_diag, fluid, scn.solid, x0=x0)
+        _warm(cfg), b, a_diag, fluid, scn.solid, x0=x0)
 
     bn = float(jnp.max(jnp.abs(b)))
     assert float(r_warm) <= max(cfg.solver.tol, cfg.solver.tol_rel * bn)
@@ -78,63 +77,61 @@ def test_pcg_loop_warm_same_solution_fewer_iters():
 def test_pcg_loop_warm_zero_rhs_exact_zero():
     """All-zero RHS (inactive substep) must yield p = 0 exactly even
     with a nonzero guess (the reference early-out, main.c:742)."""
-    cfg = _cfg(use_pallas=False)
+    cfg = _cfg()
     scn, st = _developed(cfg)
     fluid = st.fluid
     a_diag = pressure_matrix_diag(cfg, scn.solid, fluid)
     b = jnp.zeros_like(st.u)
     x0 = jnp.where(fluid, 3.7, 0.0).astype(jnp.float32)
-    p, iters, resid = solve_pressure(_warm(cfg, use_pallas=False), b,
+    p, iters, resid = solve_pressure(_warm(cfg), b,
                                      a_diag, fluid, scn.solid, x0=x0)
     assert int(iters) == 0
     assert float(jnp.max(jnp.abs(p))) == 0.0
 
 
-def test_mg_kernel_x0_matches_cold():
+def test_mg_pcg_x0_converged_guess_accepted():
+    """XLA MG-PCG seeded with the converged solution: accepted before
+    the first iteration, same solution as the cold solve."""
     cfg = _cfg()
     scn, st = _developed(cfg)
     dt = jnp.float32(0.03)
     b, a_diag, fluid = _system(cfg, scn, st, dt)
 
-    p_cold, it_cold, r_cold = solve_pressure_mg_pallas(
-        cfg, b, a_diag, fluid, scn.solid, interpret=True)
+    p_cold, it_cold, r_cold = solve_pressure(cfg, b, a_diag, fluid,
+                                             scn.solid)
     x0 = jnp.where(fluid, p_cold, 0.0)
-    p_warm, it_warm, r_warm = solve_pressure_mg_pallas(
-        cfg, b, a_diag, fluid, scn.solid, interpret=True, x0=x0)
-
+    p_warm, it_warm, r_warm = solve_pressure(_warm(cfg), b, a_diag, fluid,
+                                             scn.solid, x0=x0)
     bn = float(jnp.max(jnp.abs(b)))
     tol = max(cfg.solver.tol, cfg.solver.tol_rel * bn)
-    # seeding with the converged solution: accepted immediately
+    assert int(it_cold) > 0
     assert int(it_warm) == 0
     assert float(r_warm) <= tol
     np.testing.assert_allclose(np.asarray(p_warm), np.asarray(p_cold),
                                atol=1e-4 * max(1.0, bn))
 
 
-def test_mg_kernel_x0_masks_stale_fluid():
+def test_project_masks_stale_fluid_guess():
     """Guess cells that are no longer fluid must not leak into the
-    iterate: x0 nonzero on a NON-fluid cell is zeroed before use."""
-    cfg = _cfg()
+    iterate: project() re-masks p0 to the current fluid cells."""
+    cfg = _warm(_cfg())
     scn, st = _developed(cfg)
     dt = jnp.float32(0.03)
-    b, a_diag, fluid = _system(cfg, scn, st, dt)
-
-    p_cold, _, _ = solve_pressure_mg_pallas(
-        cfg, b, a_diag, fluid, scn.solid, interpret=True)
-    x0 = jnp.where(fluid, p_cold, 123.0)  # garbage OUTSIDE the fluid
-    p_warm, it_warm, _ = solve_pressure_mg_pallas(
-        cfg, b, a_diag, fluid, scn.solid, interpret=True, x0=x0)
-    assert float(jnp.max(jnp.abs(jnp.where(fluid, 0.0, p_warm)))) == 0.0
+    _, _, info_cold = project(_cfg(), dt, st.u, st.v, st.fluid, scn.solid)
+    p0 = jnp.where(st.fluid, info_cold["pressure"], 123.0)  # garbage outside
+    _, _, info = project(cfg, dt, st.u, st.v, st.fluid, scn.solid, p0=p0)
+    p = np.asarray(info["pressure"])
+    assert not p[~np.asarray(st.fluid)].any()
+    b, _, _ = _system(cfg, scn, st, dt)
     np.testing.assert_allclose(
-        np.asarray(p_warm), np.asarray(p_cold),
+        p, np.asarray(info_cold["pressure"]),
         atol=1e-4 * max(1.0, float(jnp.max(jnp.abs(b)))))
 
 
-def test_fused_substep_warm_frames_match_cold():
-    """Whole frames through sim.py with the fused MG substep kernel:
-    warm vs cold stay within solver tolerance of each other and marker
-    motion is identical."""
-    cfg = _cfg(pallas_interpret=True, fuse_projection=True)
+def test_step_frame_warm_frames_match_cold():
+    """Whole frames through sim.py: warm vs cold stay within solver
+    tolerance of each other and marker motion is identical."""
+    cfg = _cfg(tol_rel=1e-4)
     cfgw = _warm(cfg)
     scn, st = dam_break(cfg)
     s_cold, s_warm = st, st
@@ -146,29 +143,35 @@ def test_fused_substep_warm_frames_match_cold():
     assert du < 5e-3 and dv < 5e-3
     assert int(jnp.sum(jnp.abs(
         s_cold.marker_count - s_warm.marker_count))) == 0
-    # warm run carried a pressure plane
+    # the warm run carries a pressure plane across frames
     assert float(jnp.max(s_warm.p)) > 0.0
 
 
-def test_fused_substep_warm_inactive_zero():
-    """Inactive substep (dt_proj = inf, zero RHS) with a nonzero p0:
-    the p output must be exactly zero (select-discarded upstream, but
-    the kernel's early-out must still hold with a warm guess)."""
-    cfg = _cfg(warm_start=True)
+def test_inactive_substep_warm_zero():
+    """Inactive substep (dt_proj = inf, zero RHS) with a nonzero p0: the
+    projected pressure is exactly zero and the solve runs 0 iterations,
+    even with a warm guess; step_frame's select discards the inactive
+    substeps' outputs, so a warm frame with inactive substeps stays
+    finite."""
+    cfg = _warm(_cfg())
     scn, st = _developed(_cfg())
     p0 = jnp.where(st.fluid, 2.5, 0.0).astype(jnp.float32)
-    u2, v2, iters, resid, msq, p = project_substep_mg(
-        cfg, jnp.float32(0.0), jnp.float32(np.inf),
-        st.u, st.v, st.fluid, st.prev_fluid, scn.solid, p0,
-        interpret=True,
-    )
-    assert int(iters) == 0
-    assert float(jnp.max(jnp.abs(p))) == 0.0
-    assert np.isfinite(np.asarray(u2)).all()
+    _, _, info = project(cfg, jnp.float32(np.inf), st.u, st.v, st.fluid,
+                         scn.solid, p0=p0)
+    assert int(info["iterations"]) == 0
+    assert float(jnp.max(jnp.abs(info["pressure"]))) == 0.0
+
+    out, stats = jax.jit(step_frame_stats, static_argnums=0)(cfg, scn, st)
+    active = int(stats["active_substeps"])
+    assert 0 < active < cfg.max_substeps
+    assert not np.asarray(stats["pcg_iterations"])[active:].any()
+    assert np.isfinite(np.asarray(out.u)).all()
+    assert np.isfinite(np.asarray(out.v)).all()
+    assert np.isfinite(np.asarray(out.p)).all()
 
 
 def test_project_op_path_carries_pressure():
-    cfg = _warm(_cfg(use_pallas=False))
+    cfg = _warm(_cfg())
     scn, st = _developed(cfg)
     dt = jnp.float32(0.03)
     u2, v2, info = project(cfg, dt, st.u, st.v, st.fluid, scn.solid,

@@ -1,10 +1,12 @@
-"""Dump the TPU-compiled HLO of the benchmark step for op attribution.
+"""Dump the compiled HLO of the benchmark frame for op attribution.
 
-    python tools/dump_hlo.py --size 1024 > /tmp/step_hlo.txt
+    python tools/dump_hlo.py --size 1024 > step_hlo.txt
 
-Each optimized-HLO op carries source metadata; grep the hot op names
-from tools/profile_step.py output (e.g. broadcast_in_dim.222) to see
-which Python line produced them.
+Compiles for JAX's default device (the GPU on the card; add
+JAX_PLATFORMS=cpu to inspect the CPU program).  Each optimized-HLO op
+carries source metadata, including the layer's `jax.named_scope`; grep
+the hot op names from tools/profile_step.py output to see which Python
+line produced them.
 """
 
 from __future__ import annotations
@@ -19,21 +21,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=1024)
-    args = ap.parse_args()
+    args, bench_argv = ap.parse_known_args()
 
     import jax
 
-    from euler_tpu.config import SimConfig, SolverConfig
+    import bench
     from euler_tpu.core.presets import dam_break
+    from euler_tpu.parallel.spatial import to_spatial
     from euler_tpu.sim import step_frame
 
-    cfg = SimConfig(
-        nx=args.size, ny=args.size, marker_layout="slots",
-        use_pallas_markers=True,
-        solver=SolverConfig(max_iterations=100, tol=1e-6, dtype="float32",
-                            preconditioner="jacobi", use_pallas=True),
-    )
+    cfg = bench.build_config(
+        bench.parse_args(["--size", str(args.size), *bench_argv]))
     scn, state = dam_break(cfg)
+    if cfg.marker_layout == "slots":
+        state = to_spatial(cfg, state)  # bench.py's [2, K, Y, X] store
     lowered = jax.jit(step_frame, static_argnums=0).lower(cfg, scn, state)
     print(lowered.compile().as_text())
 

@@ -1,20 +1,35 @@
-"""Per-kernel frame-time breakdown on the real chip (PERF.md roofline).
+"""Per-layer device-time breakdown of the benchmark frame on the GPU.
 
-Runs the benchmark workload under jax.profiler, then aggregates device
-kernel durations from the trace-viewer dump into a per-frame budget:
+    python tools/profile_step.py [--size 1024] [--frames 4] \
+        [--logdir chiprun_out/trace] [bench.py options after --]
 
-    python tools/profile_step.py --size 1024 --frames 5
+Runs bench.py's configuration (the converged 1024² dam break by
+default), traces a window of frames with jax.profiler, and reduces the
+device events (the "/device:GPU:N" planes of the trace) to:
 
-Prints one line per kernel group (time/frame, share) plus totals, the
-numbers behind PERF.md's roofline section.
+  * wall time per frame, and the device busy and idle shares of the
+    traced window (busy = union of the kernel intervals);
+  * device time per frame for each layer: the `jax.named_scope` of
+    sim.substep and ops.project (marker_pass, sources, grid_stage,
+    mg_hierarchy, pcg_solve, projection); device operations under none
+    of them are frame glue (the substep scan, selects, copies);
+  * the top device operations by time.
+
+A kernel event names its HLO instruction (its `hlo_op` stat); the
+instruction's op_name metadata in the compiled HLO carries the scope.
+XLA on the GPU runs the frame as CUDA graphs ("command buffers"), and a
+traced graph is one event without layers, so take the per-layer
+breakdown with them off:
+
+    XLA_FLAGS=--xla_gpu_enable_command_buffer= python tools/profile_step.py
+
+and the production wall time from bench.py, which leaves them on.
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
-import gzip
-import json
 import os
 import re
 import shutil
@@ -23,163 +38,154 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+# innermost first: pcg_solve and mg_hierarchy sit inside projection
+LAYERS = ("mg_hierarchy", "pcg_solve", "marker_pass", "sources",
+          "grid_stage", "projection")
+GLUE = "frame glue"
 
-def run_workload(args):
+_INSTR = re.compile(
+    r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=.*?metadata=\{[^}]*?op_name=\"([^\"]*)\""
+)
+
+
+def scope_map(hlo_text: str) -> dict:
+    """{HLO instruction name: layer} from compiled HLO text."""
+    out = {}
+    for line in hlo_text.splitlines():
+        m = _INSTR.match(line)
+        if not m:
+            continue
+        parts = m.group(2).split("/")
+        out[m.group(1)] = next((l for l in LAYERS if l in parts), GLUE)
+    return out
+
+
+def reduce_events(events, layer_of: dict, frames: int) -> dict:
+    """events: (name, hlo_op, start_ns, duration_ns) of device kernels.
+
+    Returns per-frame device time per layer and per operation (ms), the
+    busy time (union of intervals) and the window they span (ns)."""
+    per_layer, per_op = {}, {}
+    intervals = []
+    for name, hlo_op, start, dur in events:
+        key = hlo_op or name
+        layer = layer_of.get(key, layer_of.get(name, GLUE))
+        per_layer[layer] = per_layer.get(layer, 0.0) + dur
+        per_op[key] = per_op.get(key, 0.0) + dur
+        intervals.append((start, start + dur))
+    intervals.sort()
+    busy, cur_s, cur_e = 0, None, None
+    for s, e in intervals:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    window = (intervals[-1][1] - intervals[0][0]) if intervals else 0
+    ms = lambda d: {k: v / frames / 1e6 for k, v in d.items()}  # noqa: E731
+    return {"layer_ms_per_frame": ms(per_layer),
+            "op_ms_per_frame": ms(per_op),
+            "busy_ns": busy, "window_ns": window}
+
+
+def device_events(xplane_path: str):
+    """Kernel events of the "/device:GPU" planes, and the line names seen.
+
+    Only the per-stream lines hold kernels; the derived lines of the
+    same plane ("XLA Ops", "XLA Modules", ...) repeat them."""
     import jax
 
-    # same persistent compile cache as bench.py — an mg-kernel compile
-    # is ~25 min at 1024², pay it once per config
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                       os.path.expanduser("~/.cache/euler_tpu_xla")),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-
-    from euler_tpu.config import SimConfig, SolverConfig
-    from euler_tpu.core.presets import dam_break
-    from euler_tpu.sim import step_frame_jit
-
-    cfg = SimConfig(
-        nx=args.size,
-        ny=args.size,
-        marker_layout="slots",
-        rainbow=args.rainbow,
-        use_pallas_markers=True,
-        solver=SolverConfig(max_iterations=100, tol=1e-6,
-                            tol_rel=args.tol_rel,
-                            dtype="float32", preconditioner=args.precon,
-                            use_pallas=True,
-                            fuse_projection=args.fuse_projection),
-    )
-    scn, state = dam_break(cfg)
-    from euler_tpu.parallel.spatial import to_spatial
-
-    state = to_spatial(cfg, state)
-
-    if args.frames_per_call > 1:
-        # mirror bench.py's chained-dispatch program EXACTLY so the
-        # persistent compile cache built by a bench run is reused
-        from euler_tpu.sim import step_frame
-
-        def _chain(scn, state, _n=args.frames_per_call):
-            for _ in range(_n):
-                state = step_frame(cfg, scn, state)
-            return state
-
-        step_chain = jax.jit(_chain)
-        step_frame_jit = lambda c, s, st: step_chain(s, st)  # noqa: E731
-        args.frames = max(1, args.frames // args.frames_per_call)
-        args.warmup = max(1, args.warmup // args.frames_per_call)
-
-    def sync(state):
-        return float(state.u.sum()) + float(state.markers.sum())
-
-    for _ in range(args.warmup):
-        state = step_frame_jit(cfg, scn, state)
-    sync(state)
-
-    logdir = args.logdir
-    shutil.rmtree(logdir, ignore_errors=True)
-    jax.profiler.start_trace(logdir)
-    t0 = time.perf_counter()
-    for _ in range(args.frames):
-        state = step_frame_jit(cfg, scn, state)
-    sync(state)
-    elapsed = time.perf_counter() - t0
-    jax.profiler.stop_trace()
-    return elapsed
-
-
-GROUPS = [
-    ("marker fused (march+rebin)", re.compile(r"fused_kernel|march_rebin")),
-    ("marker march", re.compile(r"marker_kernel|advect_markers")),
-    ("marker rebin", re.compile(r"rebin")),
-    ("pcg solve", re.compile(r"pcg")),
-    ("mg solve", re.compile(r"mg_kernel|_mg_")),
-    ("grid stage (pallas)", re.compile(r"grid_stage")),
-    ("fusion (XLA grid ops)", re.compile(r"^(fusion|loop_fusion|input_fusion)")),
-    ("copy/reshape", re.compile(r"copy|bitcast|reshape|transpose")),
-    ("convert/select", re.compile(r"convert|select|broadcast")),
-    ("reduce", re.compile(r"reduce|all_reduce")),
-    ("scatter/gather", re.compile(r"scatter|gather|dynamic")),
-]
-
-
-def aggregate(logdir: str, frames: int):
-    files = glob.glob(
-        os.path.join(logdir, "**", "*.trace.json.gz"), recursive=True
-    )
-    assert files, f"no trace files under {logdir}"
-    events = []
-    for path in files:
-        with gzip.open(path, "rt") as fh:
-            data = json.load(fh)
-        events.extend(data.get("traceEvents", []))
-
-    # device-side complete events only: pid names containing "TPU" and
-    # thread names that are XLA op streams; heuristically, keep events
-    # with 'dur' and args containing 'long_name' or kernel-ish names
-    pid_names = {}
-    for e in events:
-        if e.get("ph") == "M" and e.get("name") == "process_name":
-            pid_names[e.get("pid")] = e["args"].get("name", "")
-
-    device_pids = {
-        pid for pid, name in pid_names.items()
-        if "TPU" in name or "/device:" in name or "Chip" in name
-    }
-
-    totals: dict[str, float] = {}
-    by_name: dict[str, float] = {}
-    for e in events:
-        if e.get("ph") != "X" or "dur" not in e:
+    pd = jax.profiler.ProfileData.from_file(xplane_path)
+    events, lines = [], set()
+    for plane in pd.planes:
+        if not plane.name.startswith("/device:GPU"):
             continue
-        if device_pids and e.get("pid") not in device_pids:
-            continue
-        name = e.get("name", "")
-        by_name[name] = by_name.get(name, 0.0) + e["dur"]
-
-    grouped: dict[str, float] = {}
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]):
-        for label, pat in GROUPS:
-            if pat.search(name):
-                grouped[label] = grouped.get(label, 0.0) + us
-                break
-        else:
-            grouped.setdefault("other", 0.0)
-            grouped["other"] += us
-    return by_name, grouped
+        for line in plane.lines:
+            lines.add(line.name)
+            if not line.name.startswith("Stream"):
+                continue
+            for e in line.events:
+                stats = dict(e.stats)
+                events.append((e.name, stats.get("hlo_op"),
+                               e.start_ns, e.duration_ns))
+    return events, sorted(lines)
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--size", type=int, default=1024)
-    ap.add_argument("--frames", type=int, default=5)
-    ap.add_argument("--warmup", type=int, default=2)
-    ap.add_argument("--rainbow", action="store_true")
-    ap.add_argument("--precon", default="jacobi")
-    ap.add_argument("--tol-rel", type=float, default=1e-6)
-    ap.add_argument("--fuse-projection", action=argparse.BooleanOptionalAction,
-                    default=True)
-    ap.add_argument("--frames-per-call", type=int, default=4)
-    ap.add_argument("--logdir", default="/tmp/euler_tpu_trace")
+    ap.add_argument("--frames", type=int, default=4)
+    ap.add_argument("--logdir", default="chiprun_out/trace")
     ap.add_argument("--top", type=int, default=25)
-    args = ap.parse_args()
+    args, bench_argv = ap.parse_known_args(argv)
 
-    elapsed = run_workload(args)
-    print(f"wall: {elapsed / args.frames * 1e3:.2f} ms/frame "
-          f"({args.frames} frames)")
+    import jax
 
-    by_name, grouped = aggregate(args.logdir, args.frames)
-    dev_total = sum(by_name.values())
-    print(f"\ndevice kernel time: {dev_total / args.frames / 1e3:.2f} ms/frame")
-    print("\n== groups (ms/frame) ==")
-    for label, us in sorted(grouped.items(), key=lambda kv: -kv[1]):
-        print(f"{us / args.frames / 1e3:9.3f}  {100 * us / dev_total:5.1f}%  {label}")
-    print(f"\n== top {args.top} kernels (ms/frame) ==")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]:
-        print(f"{us / args.frames / 1e3:9.3f}  {name[:110]}")
+    import bench
+    from euler_tpu.core.presets import dam_break
+    from euler_tpu.parallel.spatial import to_spatial
+    from euler_tpu.sim import step_frame
+    from euler_tpu.utils.runtime import (
+        gpu_name_power_limit,
+        require_gpu,
+        setup_compile_cache,
+    )
+
+    require_gpu()
+    setup_compile_cache()
+    bargs = bench.parse_args(["--size", str(args.size),
+                              *[a for a in bench_argv if a != "--"]])
+    cfg = bench.build_config(bargs)
+    scn, state = dam_break(cfg)
+    if cfg.marker_layout == "slots":
+        state = to_spatial(cfg, state)
+
+    step = jax.jit(lambda scn, st: step_frame(cfg, scn, st))
+    compiled = step.lower(scn, state).compile()
+    layer_of = scope_map(compiled.as_text())
+    for _ in range(max(1, bargs.warmup_frames)):
+        state = compiled(scn, state)
+    jax.block_until_ready(state)
+
+    shutil.rmtree(args.logdir, ignore_errors=True)
+    jax.profiler.start_trace(args.logdir)
+    t0 = time.perf_counter()
+    for _ in range(args.frames):
+        state = compiled(scn, state)
+    jax.block_until_ready(state)
+    wall = time.perf_counter() - t0
+    jax.profiler.stop_trace()
+
+    paths = glob.glob(os.path.join(args.logdir, "**", "*.xplane.pb"),
+                      recursive=True)
+    if not paths:
+        raise SystemExit(f"no trace under {args.logdir}")
+    events, lines = device_events(paths[0])
+    if not events:
+        raise SystemExit(f"no device kernel events; GPU lines: {lines}")
+    r = reduce_events(events, layer_of, args.frames)
+
+    print(f"gpu: {gpu_name_power_limit()}")
+    print(f"XLA_FLAGS: {os.environ.get('XLA_FLAGS', '')!r}")
+    print(f"device: {jax.devices()[0].device_kind}; {args.size}^2, "
+          f"precon {bargs.precon}, {args.frames} traced frames")
+    print(f"wall: {wall / args.frames * 1e3:.3f} ms/frame")
+    dev = sum(r["layer_ms_per_frame"].values())
+    print(f"device kernel time: {dev:.3f} ms/frame; busy share of the "
+          f"kernel window {r['busy_ns'] / max(r['window_ns'], 1):.3f}, "
+          f"busy share of wall {r['busy_ns'] / 1e9 / wall:.3f}")
+    print("\n== layers (ms/frame, share of device time) ==")
+    for layer, v in sorted(r["layer_ms_per_frame"].items(),
+                           key=lambda kv: -kv[1]):
+        print(f"{v:10.3f}  {100 * v / dev:5.1f}%  {layer}")
+    print(f"\n== top {args.top} device operations (ms/frame) ==")
+    for op, v in sorted(r["op_ms_per_frame"].items(),
+                        key=lambda kv: -kv[1])[: args.top]:
+        print(f"{v:10.3f}  {layer_of.get(op, GLUE):13s} {op[:90]}")
+    print(f"\nGPU trace lines: {lines}; kernel events: {len(events)}")
 
 
 if __name__ == "__main__":

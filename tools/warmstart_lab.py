@@ -1,10 +1,7 @@
-"""Warm-start PCG iteration study (round 4, VERDICT item 1).
+"""Warm-start PCG iteration study.
 
-The round-4 MG schedule lab (MG_LAB_r4.jsonl) showed ms_per_solve is
-~7.5-8 ms at 1024² for EVERY schedule: iteration count and per-iteration
-cost trade exactly evenly (20 x 376 us == 14 x 566 us == 31 x 252 us).
-Schedule tuning is exhausted; the remaining iteration-count lever that
-costs nothing per iteration is WARM-STARTING each substep's solve from
+The iteration-count lever that costs nothing per iteration is
+WARM-STARTING each substep's solve from
 the previous substep's (unclamped) pressure.
 
 Stopping semantics are preserved: tol_eff = max(tol, tol_rel * ||b||)
@@ -58,11 +55,10 @@ def main():
 
     cfg = SimConfig(
         nx=args.size, ny=args.size,
-        marker_layout="slots", use_pallas_markers=False,
+        marker_layout="slots",
         solver=SolverConfig(
             max_iterations=100, tol=1e-6, tol_rel=1e-4,
             dtype="float32", preconditioner="mg",
-            use_pallas=False,
         ),
     )
     scn, state = dam_break(cfg)
@@ -114,7 +110,7 @@ def main():
            "sub": 0}
     orig_solve = proj.solve_pressure
 
-    def patched(cfg_, b, a_diag, fluid, solid=None):
+    def patched(cfg_, b, a_diag, fluid, solid=None, x0=None):
         p_cold, it_cold, res_cold = pcg_x0(b, a_diag, fluid, b * 0)
         row = {
             "frame": ctx["frame"], "sub": ctx["sub"],
@@ -134,8 +130,8 @@ def main():
             alpha = float(jnp.sum(b * Ap)) / (den if den != 0 else 1.0)
             _, it_wo, _ = pcg_x0(b, a_diag, fluid, pp * alpha)
             row["warm_opt"] = it_wo
-            # clamped carry: what the fused kernel would pass if it
-            # keeps its in-place clamp (main.c:773-779) on the p plane
+            # clamped carry: the pressure the simulation carries
+            # (main.c:773-779's clamp applied)
             _, it_wc, _ = pcg_x0(b, a_diag, fluid, jnp.maximum(pp, 0))
             row["warm_clamped"] = it_wc
             row["alpha"] = round(alpha, 4)
@@ -158,7 +154,7 @@ def main():
                                   jnp.asarray(frame_time, f))
                 ctx["dt"] = float(dt)
                 ctx["sub"] = sub
-                state, msq = substep(cfg, scn, state, dt)
+                state, msq, _ = substep(cfg, scn, state, dt)
                 frame_time -= float(dt)
                 sub += 1
             state = state.replace(frame_count=state.frame_count + 1)
